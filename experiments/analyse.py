@@ -56,49 +56,6 @@ def load(path: str) -> list[dict]:
         return [dict(r) for r in csv.DictReader(f)]
 
 
-# measured end-to-end TPU runs (outputs/tpu_runs/<bench>_<p>.json, written
-# by the runtime CLI): bench -> (seconds per evaluation, p)
-MEASURED: dict[str, tuple[float, int]] = {}
-# every parseable run, for the unified provenance table: name -> record
-MEASURED_ALL: dict[str, dict] = {}
-
-
-def load_measured(run_dir: Path) -> None:
-    import json
-    for f in sorted(run_dir.glob("*.json")):
-        try:
-            r = json.loads(f.read_text().splitlines()[-1])
-            if "run_s" not in r or "batch" not in r:
-                continue
-            MEASURED_ALL[f.stem] = r
-            if not r.get("bit_exact"):
-                continue
-            bench, p = f.stem.rsplit("_", 1)
-            s_per_eval = r["run_s"] / r["batch"]
-            if bench not in MEASURED or s_per_eval < MEASURED[bench][0]:
-                MEASURED[bench] = (s_per_eval, int(p))
-        except (ValueError, KeyError, IndexError):
-            continue
-
-
-def measured_table() -> None:
-    """Unified provenance: one row per committed hardware-run JSON
-    (VERDICT r4 weak #2: every comparison number must come from a
-    committed artifact, zero prose-only measurements)."""
-    if not MEASURED_ALL:
-        return
-    print("\n## measured TPU runs (outputs/tpu_runs/*.json)")
-    hdr = ["run", "staged", "batch", "levels", "boots", "ms/eval",
-           "boots/s", "bit_exact"]
-    print("| " + " | ".join(hdr) + " |")
-    print("|" + "---|" * len(hdr))
-    for name, r in sorted(MEASURED_ALL.items()):
-        print(f"| {name} | {r.get('staged')} | {r['batch']} "
-              f"| {r.get('levels')} | {r.get('bootstraps')} "
-              f"| {r['run_s'] / r['batch'] * 1e3:.1f} "
-              f"| {r.get('boots_per_sec')} | {r.get('bit_exact')} |")
-
-
 def _row_cost(r: dict) -> float:
     """Best estimate for a row: min(native, staged) total cost.
 
@@ -292,13 +249,7 @@ def main() -> int:
     ap.add_argument("--latex", action="store_true")
     ap.add_argument("--plots", action="store_true",
                     help="also write cost/boots-vs-p PDF figures")
-    ap.add_argument("--measured", default="outputs/tpu_runs",
-                    help="directory of runtime-CLI JSON results to merge "
-                         "as measured per-eval seconds")
     args = ap.parse_args()
-    if Path(args.measured).is_dir():
-        load_measured(Path(args.measured))
-        measured_table()
 
     for path in args.csvs:
         rows = load(path)
@@ -338,7 +289,7 @@ def main() -> int:
         # AutoHoG comparison where applicable (reference
         # analyse_results.py:171-183 Fig.7 ISCAS85 + :215-244 Table IV
         # ISCAS89 — their numbers are CPU evaluation seconds; ours are
-        # TPU-roofline estimates for the best config)
+        # H100-roofline estimates for the best config)
         for label, table in (("ISCAS85", AUTOHOG_ISCAS85),
                              ("ISCAS89", AUTOHOG_ISCAS89)):
             # regenerated functional equivalents (bench_regen.py) carry an
@@ -363,11 +314,8 @@ def main() -> int:
                 ours_s = _row_cost(r) * 1e-6
                 if ours_s != ours_s or ours_s <= 0:
                     continue
-                meas = MEASURED.get(b)
-                meas_txt = (f" | measured {meas[0]:.4f}s "
-                            f"({base_s / meas[0]:.0f}x)" if meas else "")
                 print(f"- {b}{mark}: ours (est) {ours_s:.4f}s "
-                      f"({base_s / ours_s:.2f}x){meas_txt} vs AutoHoG "
+                      f"({base_s / ours_s:.2f}x) vs AutoHoG "
                       f"{autohog_s}s ({base_s / autohog_s:.2f}x); "
                       f"TFHE-baseline {base_s}s")
 

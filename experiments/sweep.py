@@ -276,6 +276,11 @@ def main() -> int:
                          "sweep the beyond-parity racing mapper; rows merge "
                          "into the same aggregate, keyed by the mapper "
                          "column)")
+    ap.add_argument("--reestimate", action="store_true",
+                    help="map nothing: re-price the existing aggregate "
+                         "(after a cost-model change).  Program-level "
+                         "columns are filled only where the config's .lbf "
+                         "is still on disk")
     args = ap.parse_args()
 
     if args.sizes:
@@ -308,9 +313,10 @@ def main() -> int:
                             args.timeout, args.mappers))
     print(f"{len(cfgs)} configs over {len(bench_files)} benchmarks")
 
-    with mp.Pool(args.jobs) as pool:
-        for msg in pool.imap_unordered(run_one, cfgs):
-            print(msg)
+    if not args.reestimate:
+        with mp.Pool(args.jobs) as pool:
+            for msg in pool.imap_unordered(run_one, cfgs):
+                print(msg)
 
     rows = aggregate(out_dir, REPO / "outputs" / f"{args.suite}_agg.csv")
     add_estimates(rows, REPO / "outputs" / f"{args.suite}_agg_est.csv")

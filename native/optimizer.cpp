@@ -77,23 +77,17 @@ double p_error_atomic(int p, double sq_norm2, int n, int k, int N, int br_l,
   return std::erfc(margin / (sigma * std::sqrt(2.0)));
 }
 
-// TPU v5e-class roofline (mirror of optimizer.py): fused Pallas kernel,
-// streamed precomputed key matrices vs on-the-fly in-VMEM rebuild.
-constexpr double MXU_INT8_OPS = 394e12;
-constexpr double HBM_BYTES = 820e9;
-constexpr double MXU_EFF_FUSED = 0.65;
-constexpr double MXU_EFF_OTF = 0.55;
-constexpr double MATMUL_HBM_BUDGET = 12e9;
+// NVIDIA H100 SXM roofline (mirror of optimizer.py; source and values in
+// tfhe_fbs_map_tpu/optimizer/device.py): int8 tensor cores + HBM.
+constexpr double INT8_OPS = 1979e12;
+constexpr double HBM_BYTES = 3.35e12;
 
 double bootstrap_cost_us(int n, int k, int N, int br_l, int ks_l,
                          int bsk_limbs) {
-  double mat_bytes =
-      double(n) * bsk_limbs * (k + 1) * br_l * N * (k + 1) * N;
-  double eff = mat_bytes <= MATMUL_HBM_BUDGET ? MXU_EFF_FUSED : MXU_EFF_OTF;
   double br_macs =
       double(n) * (k + 1) * (k + 1) * br_l * N * N * double(bsk_limbs);
   double ks_macs = double(k) * N * ks_l * (n + 1) * 4.0;
-  double compute_s = 2.0 * (br_macs + ks_macs) / (MXU_INT8_OPS * eff);
+  double compute_s = 2.0 * (br_macs + ks_macs) / INT8_OPS;
   double acc_bytes = double(n) * 3.0 * (k + 1) * N * 4.0;
   double mem_s = acc_bytes / HBM_BYTES;
   return (compute_s > mem_s ? compute_s : mem_s) * 1e6;

@@ -102,7 +102,7 @@ def test_checkpoint_resume(tmp_path):
 
 def test_checkpoint_adaptive_budget(tmp_path):
     """Adaptive checkpointing keeps snapshot cost within the budget: a
-    zero budget never snapshots (fast circuits skip the tunneled readback
+    zero budget never snapshots (fast circuits skip the host readback
     entirely), a generous one does."""
     import os
 

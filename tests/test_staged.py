@@ -172,7 +172,7 @@ def test_optimize_staged_f1_wire_variance():
     fresh-bootstrap variance, not fam2's.  With the all-split default
     (``wires_from_stage2=True``) the Kreyvium-1152 probe mix (8754 f1
     singles, eff norms 27/25) picked an l=2/b=8 fam1 whose true stage-1
-    error was 0.22/boot (measured 9529/23040 wrong output bits on TPU);
+    error was 0.22/boot (9529/23040 wrong output bits in a run);
     the conservative flag must yield a self-consistent parameter set."""
     from tfhe_fbs_map_tpu.optimizer.noise import (P_ERROR_4_SIGMA,
                                                   staged_p_errors)

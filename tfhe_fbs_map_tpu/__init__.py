@@ -1,9 +1,9 @@
-"""tfhe_fbs_map_tpu — TPU-native TFHE functional-bootstrapping framework.
+"""tfhe_fbs_map_tpu — TFHE functional-bootstrapping framework.
 
 A from-scratch reimplementation of the capabilities of ``ssmiler/tfhe_fbs_map``
 (the circuit-to-FBS mapping heuristic of eprint 2024/1204) extended with the
-piece that repository delegates to Zama Concrete: a TPU-native TFHE executor
-built on JAX/XLA/Pallas, plus a parameter/cost optimizer.
+piece that repository delegates to Zama Concrete: a batched TFHE executor
+built on JAX/XLA for NVIDIA GPUs, plus a parameter/cost optimizer.
 
 Layers:
 
@@ -11,8 +11,8 @@ Layers:
   (CPU, numpy).
 * :mod:`tfhe_fbs_map_tpu.tfhe` — TFHE math core: torus types, keygen,
   encryption, gadget decomposition, programmable bootstrap (JAX).
-* :mod:`tfhe_fbs_map_tpu.ops` — TPU kernels (negacyclic polymul on the MXU,
-  blind rotation, key switch; jnp reference paths + Pallas).
+* :mod:`tfhe_fbs_map_tpu.ops` — the int8 fast path (negacyclic key
+  matrices on the tensor cores, blind rotation, key switch).
 * :mod:`tfhe_fbs_map_tpu.runtime` — levelized batched executor for mapped
   circuits.
 * :mod:`tfhe_fbs_map_tpu.parallel` — device-mesh sharding of ciphertext

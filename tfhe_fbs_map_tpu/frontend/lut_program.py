@@ -14,12 +14,12 @@ semantics of the reference's ``LutExecEnv``
 * per-node value upper-bound tracking, with the invariant that every bootstrap
   table has exactly ``max_val + 1`` entries (reference ``fbs_exec_env.py:76-91,
   147-152``),
-* vectorized cleartext evaluation — the oracle the TPU homomorphic executor
+* vectorized cleartext evaluation — the oracle the homomorphic executor
   must reproduce bit-exactly (reference ``fbs_exec_env.py:208-229``),
 * ``stats`` with the ``norm2_linprod`` metric that feeds the TFHE noise/cost
   model (reference ``fbs_exec_env.py:245-276``),
 * ``.fbs`` pretty-print and ``.lbf`` serialization (reference
-  ``fbs_exec_env.py:158-206``), plus an ``.lbf`` parser (new: the TPU runtime
+  ``fbs_exec_env.py:158-206``), plus an ``.lbf`` parser (new: the runtime
   consumes serialized programs directly).
 """
 
@@ -178,7 +178,7 @@ class LutProgram:
     # ------------------------------------------------------------------ eval
     def eval(self, input_values: dict[str, np.ndarray | Sequence[int]]
              ) -> dict[str, np.ndarray]:
-        """Cleartext oracle; TPU homomorphic execution must decrypt to this."""
+        """Cleartext oracle; homomorphic execution must decrypt to this."""
         wires: dict[str, np.ndarray] = {"0": np.int64(0), "1": np.int64(1)}
         for node in self.nodes:
             if node.kind == N_INPUT:

@@ -1,25 +1,25 @@
-"""MXU fast paths for the programmable bootstrap.
+"""Int8 tensor-core fast paths for the programmable bootstrap.
 
-The blind-rotate hot loop costs ``n · (k+1)² · l · N²`` MACs per ciphertext —
-all the FLOPs of the framework.  Orientations, fastest first (measured
-numbers in PERF.md):
+The blind-rotate hot loop costs ``n · (k+1)² · l · N² · L`` int8 MACs per
+ciphertext (L = key limbs) — all the FLOPs of the framework.  Each CMux
+step is ONE wide s8×s8→s32 ``dot_general`` of the gadget digits
+``[B, rows·N]`` against the step's negacyclic key matrix (``L·(k+1)·N``
+outputs), inside a ``lax.scan`` over the n steps.  Two key
+forms feed that product:
 
-* ``"fused"`` (11.3k boots/s): same precomputed key matrices, but all n
-  CMux steps run inside ONE Pallas kernel with the accumulator resident
-  in VMEM (:mod:`tfhe_fbs_map_tpu.ops.fused_blind_rotate`).
-* ``"matmul"`` (1.5k boots/s): XLA-level scan; the external product is ONE
-  wide s8×s8→s32 ``dot_general`` per step (the MXU-native integer path) and
-  the monomial rotation is a batched one-hot matmul.  HBM cost for both:
-  ``n·L·rows·N·(k+1)·N`` bytes; optional BSK limb-drop quantization.
-* ``"keys_lhs_bf16"`` / ``"keys_lhs"`` / ``"keys_rhs"``: convolution
-  formulations (digit or key operand extended negacyclically to handle
-  X^N = −1).  No precompute memory, but TPU XLA has no s8 conv path, so
-  these run well below MXU rate; kept as memory-lean fallbacks and as
-  differential references.
+* ``"matmul"``: the key matrices are precomputed once and streamed from
+  device memory, ``n·L·rows·N·(k+1)·N`` bytes (10.3 GB at the bench
+  anchor), stored output-major ``[L·(k+1)·N, rows·N]`` so the contraction
+  dim is minor in both operands — the layout cuBLAS's int8 GEMM takes
+  without a transpose of the key.  Optional BSK limb-drop quantization.
+* ``"compact"``: only the ``[L·(k+1), rows, 2N]`` anti-periodic limb
+  extension of every GGSW row is kept (``N``× smaller: 40 MB at the
+  anchor, 139 MB at native p=32) and each step's matrix is rebuilt from it
+  as a Toeplitz view (:func:`toeplitz_rows`).  The only form that holds
+  N=2048 families, or both staged families at once, in 80 GB.
 
 Exactness mod 2^32 everywhere: keys split into balanced 8-bit limbs
-(s32 accumulation stays < 2^27; bf16 paths additionally sub-split digits so
-f32 accumulation stays < 2^24), recombined with wrapping shifts.  Every
+(s32 accumulation stays < 2^27), recombined with wrapping shifts.  Every
 path is asserted bit-identical to the generic
 :mod:`tfhe_fbs_map_tpu.tfhe.pbs` implementation in tests/test_fast_path.py.
 """
@@ -34,175 +34,146 @@ import jax.numpy as jnp
 from ..tfhe.keys import TFHEKeys
 from ..tfhe.numeric import I32, gadget_decompose, signed_limbs
 from ..tfhe.params import Q_BITS, TFHEParams
-from .polymul import monomial_rotate, monomial_rotate_onehot
+from .polymul import monomial_rotate
 
-__all__ = ["FastKeys", "prepare_fast_keys", "functional_bootstrap_fast",
-           "external_product_conv"]
+__all__ = ["FastKeys", "ORIENTATIONS", "prepare_fast_keys",
+           "functional_bootstrap_fast", "external_product_fast",
+           "key_bytes", "pick_orientation", "toeplitz_rows"]
 
 N_LIMBS = 4
 LIMB_BITS = 8
-
-
-def _limb_kernels(polys: jnp.ndarray) -> jnp.ndarray:
-    """[..., N] torus polys -> [..., N_LIMBS, N] int8 reversed conv kernels."""
-    limbs = signed_limbs(polys, N_LIMBS, LIMB_BITS)      # [..., N, L]
-    limbs = jnp.moveaxis(limbs, -1, -2)                  # [..., L, N]
-    return limbs[..., ::-1].astype(jnp.int8)             # kernel reversal
+ORIENTATIONS = ("matmul", "compact")
 
 
 class FastKeys:
-    """Device-side preprocessed key material for the conv fast path.
-
-    ``orientation`` selects which operand of the external-product conv holds
-    the key: ``"keys_rhs"`` puts the key limbs in the conv weights (output
-    channels = (k+1)·limbs = small), ``"keys_lhs"`` pre-extends the key
-    negacyclically as the conv input and feeds the per-step digits as the
-    weights, making the *ciphertext batch* the output-channel dimension —
-    which is what fills the 128-lane MXU at realistic batch sizes.
-    """
+    """Device-side preprocessed key material for the int8 fast path."""
 
     def __init__(self, params: TFHEParams, bsk_kernels: jnp.ndarray,
-                 ksk_limbs: jnp.ndarray, orientation: str = "keys_rhs"):
+                 ksk_limbs: jnp.ndarray, orientation: str = "matmul"):
+        assert orientation in ORIENTATIONS, orientation
         self.params = params
-        # keys_rhs: [n, (k+1)*N_LIMBS, rows, N] int8 — conv rhs per step
-        # keys_lhs: [n, (k+1)*N_LIMBS, rows, 2N] int8 — extended conv lhs
+        # matmul:  [n, L·(k+1)·N, rows·N] int8 — precomputed key matrices
+        # compact: [n, L·(k+1), rows, 2N] int8 — anti-periodic extensions
         self.bsk_kernels = bsk_kernels
         # [N_LIMBS, kN*l_ks, n+1] int8 — key-switch matmul limbs
         self.ksk_limbs = ksk_limbs
         self.orientation = orientation
 
 
+def key_bytes(params: TFHEParams, orientation: str,
+              bsk_limbs: int = N_LIMBS) -> int:
+    """Device bytes of the bootstrapping key in ``orientation``'s form."""
+    k1 = params.glwe_dim + 1
+    rows, N = k1 * params.bsk_level, params.poly_size
+    per_step = rows * N * k1 * N if orientation == "matmul" \
+        else k1 * rows * 2 * N
+    return params.lwe_dim * bsk_limbs * per_step
+
+
+# Share of the device's memory that precomputed key matrices may take; the
+# rest is left to the wire buffer and transients.  A chosen margin, not a
+# measured limit (PERF.md lists what has been seen to fit).
+MATMUL_KEY_SHARE = 0.6
+
+
+def pick_orientation(param_sets, backend: str,
+                     mem_bytes: float) -> str | None:
+    """Key form for the families in ``param_sets`` (all held at once).
+
+    ``None`` (the generic path) off the GPU or when a gadget base does not
+    fit int8 digits; otherwise precomputed matrices when all of them take
+    at most ``MATMUL_KEY_SHARE`` of ``mem_bytes``, compact keys when they
+    do not."""
+    if backend != "gpu" or any(p.bsk_base_log > 8 or p.ksk_base_log > 7
+                               for p in param_sets):
+        return None
+    need = sum(key_bytes(p, "matmul") for p in param_sets)
+    return "matmul" if need <= MATMUL_KEY_SHARE * mem_bytes else "compact"
+
+
+def _ksk_limbs(keys: TFHEKeys) -> jnp.ndarray:
+    params = keys.params
+    kn_l = params.big_dim * params.ksk_level
+    limbs = signed_limbs(keys.ksk.reshape(kn_l, params.lwe_dim + 1),
+                         N_LIMBS, LIMB_BITS)             # [kn_l, n+1, L]
+    return jnp.moveaxis(limbs, -1, 0).astype(jnp.int8)
+
+
 def prepare_fast_keys(keys: TFHEKeys, orientation: str = "matmul",
                       bsk_limbs: int = N_LIMBS) -> FastKeys:
-    """``bsk_limbs`` < 4 (matmul orientation only) drops the least
-    significant key limbs — BSK quantization: −25% MACs and memory per
-    dropped limb for a bounded extra noise term of std
-    ``sqrt(rows·N·(B²/12)·(2^(8·drop))²/12)`` per blind-rotate step."""
+    """``bsk_limbs`` < 4 drops the least significant key limbs — BSK
+    quantization: −25% MACs and memory per dropped limb for a bounded extra
+    noise term of std ``sqrt(rows·N·(B²/12)·(2^(8·drop))²/12)`` per
+    blind-rotate step."""
     params = keys.params
-    if orientation not in ("matmul", "fused", "fused_otf"):
-        assert params.bsk_base_log <= 7, (
-            "conv fast path needs bootstrap digits that fit int8 after "
-            f"negation (base_log {params.bsk_base_log} > 7)")
-    else:
-        assert params.bsk_base_log <= 8
+    assert orientation in ORIENTATIONS, orientation
+    assert params.bsk_base_log <= 8, "gadget digits must fit int8"
     assert params.ksk_base_log <= 7
 
     n = params.lwe_dim
     k1 = params.glwe_dim + 1
     rows = k1 * params.bsk_level
     N = params.poly_size
+    drop = N_LIMBS - bsk_limbs
 
-    if orientation == "fused_otf":
-        # Compact key form for the on-the-fly fused kernel: per (step, row,
-        # limb λ, component c) the length-2N anti-periodic limb extension
-        # E = [limbs(−poly)_λ, limbs(poly)_λ].  Row j of the negacyclic
-        # matrix is the CYCLIC rotation roll(E, j)[N:2N] — the X^N = −1
-        # sign structure lives in E's data, so rotation in limb space is
-        # exact and the kernel rebuilds each [rows·N, N] chunk in VMEM by
-        # log2(N) roll-doubling stages.  HBM: n·L·(k+1)·rows·2N bytes
-        # (~46 MB at the bench anchor vs 11.9 GB precomputed).
-        drop = N_LIMBS - bsk_limbs
+    if orientation == "compact":
+        # Per (step, limb λ, component c, row r) the length-2N
+        # anti-periodic limb extension E = [limbs(−poly)_λ, limbs(poly)_λ]:
+        # row j of the negacyclic matrix is the window E[N−j : 2N−j], so the
+        # X^N = −1 signs live in E's data and the matrix is a pure view.
         pos = signed_limbs(keys.bsk, N_LIMBS, LIMB_BITS)     # [n,r,k+1,N,L]
         neg = signed_limbs(-keys.bsk, N_LIMBS, LIMB_BITS)
-        ext = jnp.concatenate([neg, pos], axis=-2)           # [n,r,k+1,2N,L]
-        ext = ext[..., drop:]
+        ext = jnp.concatenate([neg, pos], axis=-2)[..., drop:]
         ext = jnp.transpose(ext, (0, 4, 2, 1, 3))            # [n,L,k+1,r,2N]
         kern = ext.reshape(n, bsk_limbs * k1, rows, 2 * N).astype(jnp.int8)
+        return FastKeys(params, kern, _ksk_limbs(keys), orientation)
 
-        kn_l = params.big_dim * params.ksk_level
-        ksk_limbs = signed_limbs(
-            keys.ksk.reshape(kn_l, params.lwe_dim + 1), N_LIMBS, LIMB_BITS)
-        ksk_limbs = jnp.moveaxis(ksk_limbs, -1, 0).astype(jnp.int8)
-        return FastKeys(params, kern, ksk_limbs, orientation)
+    # Precomputed negacyclic matrices of every GGSW row poly, as int8
+    # limbs: [n, L*(k+1)*N, rows*N], output (limb, comp, t) limb-major so
+    # one wide matmul covers all limbs, contraction (r, j) minor.
+    # Built chunk by chunk into a preallocated buffer inside one jit (a
+    # fori_loop whose carry XLA updates in place), so the int32
+    # transients stay at a few hundred MB.
+    def build_chunk(bsk_chunk):                          # [c, rows, k+1, N]
+        c = bsk_chunk.shape[0]
+        ext = jnp.concatenate([-bsk_chunk, bsk_chunk], axis=-1)
+        mats = toeplitz_rows(ext)                        # [c,r,k+1,j,t]
+        limbs = signed_limbs(mats, N_LIMBS, LIMB_BITS)[..., drop:]
+        limbs = jnp.transpose(limbs, (0, 5, 2, 4, 1, 3))  # [c,L,k+1,t,r,j]
+        return limbs.reshape(c, bsk_limbs * k1 * N, rows * N) \
+            .astype(jnp.int8)
 
-    if orientation in ("matmul", "fused"):
-        # Precomputed negacyclic matrices of every GGSW row poly, as int8
-        # limbs: [n, L, rows*N, (k+1)*N].  The external product becomes one
-        # s8xs8->s32 dot_general per limb — the MXU-native integer path.
-        # Memory: n * L * rows*N * (k+1)*N bytes (e.g. 11.9 GB for
-        # n=630, k=2, N=512, l=2).  Construction is gather-free (TPU
-        # gathers scalarize): row j of the negacyclic matrix is X^j·poly,
-        # and the stack of all N rotations is built by log2(N) doubling
-        # steps of *static* negacyclic rolls; chunks accumulate into a
-        # donated preallocated buffer.
-        from .polymul import negacyclic_rotation_stack as all_rotations
+    chunk = next((c for c in (2, 3, 5, 7, 4, 6, 8, 9, 10, 16)
+                  if n % c == 0), 1)
+    bsk_r = keys.bsk.reshape(n // chunk, chunk, rows, k1, N)
+    out_shape = (n, bsk_limbs * k1 * N, rows * N)
 
-        n_polys = rows * k1
+    @jax.jit
+    def build_all(b):
+        def body(idx, out):
+            return jax.lax.dynamic_update_slice(
+                out, build_chunk(b[idx]), (idx * chunk, 0, 0))
+        return jax.lax.fori_loop(0, n // chunk, body,
+                                 jnp.zeros(out_shape, jnp.int8))
 
-        drop = N_LIMBS - bsk_limbs
+    return FastKeys(params, build_all(bsk_r), _ksk_limbs(keys), orientation)
 
-        def build_chunk(bsk_chunk):                      # [c, rows, k+1, N]
-            c = bsk_chunk.shape[0]
-            polys = bsk_chunk.reshape(c * n_polys, N)
-            mats = all_rotations(polys)
-            mats = mats.reshape(c, rows, k1, N, N)       # [c, r, comp, j, t]
-            limbs = signed_limbs(mats, N_LIMBS, LIMB_BITS)
-            limbs = limbs[..., drop:]                    # quantized BSK
-            # contraction dim (r, j) major; output dim (limb, comp, t):
-            # limb-major so one wide matmul covers all limbs
-            limbs = jnp.transpose(limbs, (0, 1, 3, 5, 2, 4))
-            return limbs.reshape(c, rows * N, bsk_limbs * k1 * N) \
-                .astype(jnp.int8)
 
-        # ONE jit builds straight into the final [n, rows·N, L·k1·N] buffer:
-        # a fori_loop whose carry is the output (XLA aliases the carry, so
-        # dynamic_update_slice is in-place).  Reshaping OUTSIDE the jit
-        # copies the full ~11.9 GB buffer and OOMs the chip; small chunks
-        # keep the per-iteration int32 transients to a few hundred MB.
-        import numpy as _np
-        chunk = 1
-        for c in (2, 3, 5, 7, 4, 6, 8, 9, 10, 16):
-            if n % c == 0:
-                chunk = c
-                break
-        bsk_r = keys.bsk.reshape(n // chunk, chunk, rows, k1, N)
-        out_shape = (n, rows * N, bsk_limbs * k1 * N)
+def toeplitz_rows(ext: jnp.ndarray) -> jnp.ndarray:
+    """[..., 2N] anti-periodic extensions -> [..., N, N] negacyclic
+    matrices, ``M[j, t] = ext[N + t − j]`` (equal to
+    :func:`tfhe_fbs_map_tpu.ops.polymul.negacyclic_matrix` of the upper half).
 
-        @jax.jit
-        def build_all(b):
-            out = jnp.zeros(out_shape, jnp.int8)
-
-            def body(idx, out):
-                mat = build_chunk(b[idx])            # [chunk, rows·N, D]
-                return jax.lax.dynamic_update_slice(
-                    out, mat, (idx * chunk, 0, 0))
-
-            return jax.lax.fori_loop(0, n // chunk, body, out)
-
-        kern = build_all(bsk_r)
-        _np.asarray(kern[:1, :1, :1])  # real completion barrier
-        kn_l = params.big_dim * params.ksk_level
-        ksk_limbs = signed_limbs(
-            keys.ksk.reshape(kn_l, params.lwe_dim + 1),
-            N_LIMBS, LIMB_BITS)
-        ksk_limbs = jnp.moveaxis(ksk_limbs, -1, 0).astype(jnp.int8)
-        return FastKeys(params, kern, ksk_limbs, orientation)
-
-    if orientation == "keys_rhs":
-        # bsk [n, rows, k+1, N] -> kernels [n, (c_out, limb), rows, N]
-        kern = _limb_kernels(keys.bsk)                   # [n, rows, k+1, L, N]
-        kern = jnp.moveaxis(kern, 1, 3)                  # [n, k+1, L, rows, N]
-        kern = kern.reshape(n, k1 * N_LIMBS, rows, N)
-    else:
-        assert orientation in ("keys_lhs", "keys_lhs_bf16")
-        # negacyclic extension e_K = [-K, K] in int32 FIRST: negating int8
-        # limbs would overflow at -128; limb recombination is positionwise
-        # linear, so limb-splitting the extended poly is equivalent.
-        ext = jnp.concatenate([-keys.bsk, keys.bsk], axis=-1)  # [n,rows,k+1,2N]
-        limbs = signed_limbs(ext, N_LIMBS, LIMB_BITS)    # [n,rows,k+1,2N,L]
-        limbs = jnp.moveaxis(limbs, -1, -2)              # [n,rows,k+1,L,2N]
-        limbs = jnp.moveaxis(limbs, 1, 3)                # [n,k+1,L,rows,2N]
-        kern = limbs.reshape(n, k1 * N_LIMBS, rows, 2 * N)
-        # bf16 holds the 8-bit limbs exactly; int8 for the s32 conv path
-        kern = kern.astype(jnp.bfloat16 if orientation == "keys_lhs_bf16"
-                           else jnp.int8)
-
-    kn_l = params.big_dim * params.ksk_level
-    ksk_limbs = signed_limbs(keys.ksk.reshape(kn_l, params.lwe_dim + 1),
-                             N_LIMBS, LIMB_BITS)         # [kn_l, n+1, L]
-    ksk_limbs = jnp.moveaxis(ksk_limbs, -1, 0).astype(jnp.int8)
-
-    return FastKeys(params, kern, ksk_limbs, orientation)
+    Gather-free: N back-to-back copies of ``ext`` read with a row stride of
+    2N − 1 put ``ext[N − j + t]`` at row j, column t, so the matrix is one
+    broadcast, reshape and two slices — a single copy fusion in XLA."""
+    two_n = ext.shape[-1]
+    n = two_n // 2
+    lead = ext.shape[:-1]
+    flat = jnp.broadcast_to(ext[..., None, :], lead + (n, two_n)) \
+        .reshape(lead + (n * two_n,))
+    win = flat[..., n:n + n * (two_n - 1)].reshape(lead + (n, two_n - 1))
+    return win[..., :n]
 
 
 def _combine_limbs(x: jnp.ndarray, axis: int,
@@ -221,10 +192,14 @@ def _combine_limbs(x: jnp.ndarray, axis: int,
     return out
 
 
-def external_product_conv(diff: jnp.ndarray, kernels: jnp.ndarray,
+def external_product_fast(diff: jnp.ndarray, kernels: jnp.ndarray,
                           params: TFHEParams,
-                          orientation: str = "keys_rhs") -> jnp.ndarray:
-    """GGSW ⊡ diff as one integer convolution: [B, k+1, N] -> [B, k+1, N]."""
+                          orientation: str = "matmul") -> jnp.ndarray:
+    """GGSW ⊡ diff as one s8×s8→s32 matmul: [B, k+1, N] -> [B, k+1, N].
+
+    ``kernels`` is one step's key: [L·(k+1)·N, rows·N] (matmul) or
+    [L·(k+1), rows, 2N] (compact, expanded here by :func:`toeplitz_rows`).
+    """
     l, b = params.bsk_level, params.bsk_base_log
     k1 = params.glwe_dim + 1
     N = params.poly_size
@@ -232,70 +207,19 @@ def external_product_conv(diff: jnp.ndarray, kernels: jnp.ndarray,
 
     digits = gadget_decompose(diff, b, l)                # [B, k+1, N, l]
     digits = jnp.moveaxis(digits, -1, 2)                 # [B, k+1, l, N]
-    digits = digits.reshape(batch, k1 * l, N).astype(jnp.int8)
+    flat = digits.reshape(batch, k1 * l * N).astype(jnp.int8)
 
-    if orientation == "matmul":
-        # kernels: [rows*N, L*(k+1)*N] int8 precomputed negacyclic limbs,
-        # limb-major in the output dim so all limbs ride ONE wide s8 matmul
-        # (L < 4 means the low limbs were dropped — quantized BSK)
-        flat = digits.reshape(batch, k1 * l * N)
-        n_l = kernels.shape[1] // (k1 * N)
-        prods = jnp.einsum("bt,td->bd", flat, kernels,
-                           preferred_element_type=I32)   # [B, L*k1*N]
-        prods = prods.reshape(batch, n_l, k1 * N)
-        out = _combine_limbs(prods, axis=1, drop=N_LIMBS - n_l)
-        return out.reshape(batch, k1, N)
-
-    if orientation == "keys_rhs":
-        # negacyclic extension of the digits: e[m] = d[m] (m>=0), -d[m+N]
-        # (m<0)  =>  lhs = [-d, d]; kernels are the reversed key limbs.
-        d_ext = jnp.concatenate([-digits, digits], axis=-1)  # [B, rows, 2N]
-        out = jax.lax.conv_general_dilated(
-            d_ext, kernels,
-            window_strides=(1,), padding="VALID",
-            dimension_numbers=("NCH", "OIH", "NCH"),
-            preferred_element_type=I32)                  # [B, k1*L, N+1]
-        out = out[..., 1:]                               # valid window shift
-        out = out.reshape(batch, k1, N_LIMBS, N)
-        return _combine_limbs(out, axis=2)               # [B, k+1, N]
-
-    if orientation == "keys_lhs":
-        # keys_lhs: key limbs are the (pre-extended) conv input, reversed
-        # digits are the weights; output channels = ciphertext batch
-        # (fills MXU lanes).
-        out = jax.lax.conv_general_dilated(
-            kernels, digits[..., ::-1],
-            window_strides=(1,), padding="VALID",
-            dimension_numbers=("NCH", "OIH", "NCH"),
-            preferred_element_type=I32)                  # [G, B, N+1]
-        out = out[..., 1:]                               # [k1*L, B, N]
-        out = out.reshape(k1, N_LIMBS, batch, N)
-        out = _combine_limbs(out, axis=1)                # [k1, B, N]
-        return jnp.moveaxis(out, 0, 1)                   # [B, k+1, N]
-
-    # keys_lhs_bf16: TPU XLA has no s8 convolution path (s8 convs are
-    # upcast to s32 and run at VPU rate).  The MXU path is bf16 with f32
-    # accumulation, which is EXACT as long as every accumulated value
-    # stays below 2^24.  Key limbs are <=128 (8 bits); splitting each
-    # digit into sub-limbs d = 16*d_hi + d_lo (|d_lo|<=8, |d_hi|<=4)
-    # bounds each conv accumulation by rows*N * 128*8 < 2^24.  Two bf16
-    # convs (lo/hi) recombine exactly in int32.
-    assert orientation == "keys_lhs_bf16"
-    d_rev = digits[..., ::-1].astype(I32)
-    d_lo = ((d_rev + 8) & 15) - 8                        # [-8, 7]
-    d_hi = (d_rev - d_lo) >> 4                           # [-4, 4]
-    outs = []
-    for dsub in (d_lo, d_hi):
-        o = jax.lax.conv_general_dilated(
-            kernels, dsub.astype(jnp.bfloat16),
-            window_strides=(1,), padding="VALID",
-            dimension_numbers=("NCH", "OIH", "NCH"),
-            preferred_element_type=jnp.float32)          # [G, B, N+1] f32
-        outs.append(o[..., 1:].astype(I32))
-    out = outs[0] + (outs[1] << 4)                       # [k1*L, B, N]
-    out = out.reshape(k1, N_LIMBS, batch, N)
-    out = _combine_limbs(out, axis=1)
-    return jnp.moveaxis(out, 0, 1)
+    if orientation == "compact":
+        g = kernels.shape[0]
+        mats = toeplitz_rows(kernels)                    # [G, rows, j, t]
+        kernels = jnp.transpose(mats, (0, 3, 1, 2)).reshape(
+            g * N, k1 * l * N)
+    n_l = kernels.shape[0] // (k1 * N)
+    prods = jnp.einsum("bt,dt->bd", flat, kernels,
+                       preferred_element_type=I32)       # [B, L*k1*N]
+    prods = prods.reshape(batch, n_l, k1 * N)
+    out = _combine_limbs(prods, axis=1, drop=N_LIMBS - n_l)
+    return out.reshape(batch, k1, N)
 
 
 def keyswitch_fast(big_cts: jnp.ndarray, fast: FastKeys) -> jnp.ndarray:
@@ -325,56 +249,35 @@ def _fbs_fast_impl(params: TFHEParams, orientation: str, bsk_kernels,
     n, k, N = params.lwe_dim, params.glwe_dim, params.poly_size
     batch = big_cts.shape[0]
 
-    shifted = big_cts.at[:, -1].add(I32(params.half_window))
-    small = keyswitch_fast(shifted, fast)
+    with jax.named_scope("keyswitch"):
+        shifted = big_cts.at[:, -1].add(I32(params.half_window))
+        small = keyswitch_fast(shifted, fast)
+    with jax.named_scope("modswitch"):
+        a_t = _modswitch(small[:, :n], params)
+        b_t = _modswitch(small[:, n], params)
 
-    a_t = _modswitch(small[:, :n], params)
-    b_t = _modswitch(small[:, n], params)
+    with jax.named_scope("blind_rotate"):
+        v_init = monomial_rotate(test_polys, (2 * N - b_t) % (2 * N))
+        acc = jnp.concatenate(
+            [jnp.zeros((batch, k, N), dtype=I32), v_init[:, None, :]], axis=1)
 
-    if orientation in ("fused", "fused_otf"):
-        # all n CMux steps in one Pallas kernel, accumulator VMEM-resident
-        from .fused_blind_rotate import blind_rotate_fused
-        b_init = ((2 * N - b_t) % (2 * N))[:, None]
-        a_steps = jnp.transpose(a_t)[:, :, None]
-        acc = blind_rotate_fused(b_init, a_steps, test_polys, bsk_kernels,
-                                 params,
-                                 jax.default_backend() != "tpu")
-        acc = jnp.transpose(acc, (1, 0, 2))              # [B, k+1, N]
-        a = acc[:, :k, :]
-        a_ext = jnp.concatenate([a[..., :1], -a[..., :0:-1]], axis=-1)
-        out = jnp.concatenate(
-            [a_ext.reshape(batch, k * N), acc[:, k, :1]], axis=1)
-        return out.at[:, -1].add(posts)
-
-    v_init = monomial_rotate(test_polys, (2 * N - b_t) % (2 * N))
-    acc = jnp.concatenate(
-        [jnp.zeros((batch, k, N), dtype=I32), v_init[:, None, :]], axis=1)
-
-    if orientation == "matmul":
-        # MXU-native rotation; scan streams the per-step key slices
         def step(acc, xs):
             a_i, kern_i = xs
-            rotated = monomial_rotate_onehot(acc, a_i)
-            return acc + external_product_conv(
+            rotated = monomial_rotate(acc, a_i[:, None])
+            return acc + external_product_fast(
                 rotated - acc, kern_i, params, orientation), None
         acc, _ = jax.lax.scan(step, acc, (a_t.T, bsk_kernels))
-    else:
-        def step(i, acc):
-            rotated = monomial_rotate(acc, a_t[:, i][:, None])
-            return acc + external_product_conv(rotated - acc, bsk_kernels[i],
-                                               params, orientation)
-        acc = jax.lax.fori_loop(0, n, step, acc)
 
-    # sample extract
-    a = acc[:, :k, :]
-    a_ext = jnp.concatenate([a[..., :1], -a[..., :0:-1]], axis=-1)
-    out = jnp.concatenate([a_ext.reshape(batch, k * N), acc[:, k, :1]],
-                          axis=1)
-    return out.at[:, -1].add(posts)
+    with jax.named_scope("sample_extract"):
+        a = acc[:, :k, :]
+        a_ext = jnp.concatenate([a[..., :1], -a[..., :0:-1]], axis=-1)
+        out = jnp.concatenate([a_ext.reshape(batch, k * N), acc[:, k, :1]],
+                              axis=1)
+        return out.at[:, -1].add(posts)
 
 
 def functional_bootstrap_fast(fast: FastKeys, big_cts, test_polys, posts):
-    """Batched FBS on the MXU conv path; semantics identical to
+    """Batched FBS on the int8 fast path; semantics identical to
     :func:`tfhe_fbs_map_tpu.tfhe.pbs.functional_bootstrap`."""
     return _fbs_fast_impl(fast.params, fast.orientation, fast.bsk_kernels,
                           fast.ksk_limbs, big_cts, test_polys, posts)

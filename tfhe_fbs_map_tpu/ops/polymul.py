@@ -1,20 +1,17 @@
 """Negacyclic polynomial arithmetic in Z_{2^32}[X]/(X^N + 1).
 
-TPU-first formulation: a negacyclic product is a vector–matrix product with
-the (anti)circulant matrix of one operand, so the MXU — not an FFT — is the
-natural execution unit (no f64 FFT exists on TPU, and f32 FFT error would
-swamp the torus noise budget).  Exactness comes from int32 wraparound and,
-on the fast path, from int8 limb splitting with int32 accumulation
+A negacyclic product is a vector–matrix product with the (anti)circulant
+matrix of one operand, so a matrix unit — not an FFT — executes it
+exactly (an f32 FFT's error would swamp the torus noise budget).
+Exactness comes from int32 wraparound and, on the fast path, from int8
+limb splitting with int32 accumulation
 (:func:`tfhe_fbs_map_tpu.tfhe.numeric.signed_limbs`).
-
-Three implementations, in increasing speed:
 
 * :func:`negacyclic_polymul` — generic exact product via an on-the-fly
   negacyclic matrix (gather).  Reference path, any shape.
-* :func:`negacyclic_matmul` — product against a *precomputed* negacyclic
-  matrix (``negacyclic_matrix``), int32 dot.
-* int8 limb matmuls against precomputed key-matrix limbs — built in
-  :mod:`tfhe_fbs_map_tpu.tfhe.pbs` for the blind-rotate hot loop.
+* int8 limb matmuls against negacyclic key matrices — built in
+  :mod:`tfhe_fbs_map_tpu.ops.blind_rotate` for the blind-rotate hot loop.
+* :func:`monomial_rotate` — X^a · poly with per-row amounts, a gather.
 """
 
 from __future__ import annotations
@@ -22,9 +19,8 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-# canonical torus dtypes (duplicated from tfhe.numeric to keep ops/ leaf-level)
+# canonical torus dtype (duplicated from tfhe.numeric to keep ops/ leaf-level)
 I32 = jnp.int32
-U32 = jnp.uint32
 
 __all__ = ["negacyclic_matrix", "negacyclic_polymul", "monomial_rotate",
            "np_negacyclic_polymul"]
@@ -72,87 +68,10 @@ def monomial_rotate(poly: jnp.ndarray, amount: jnp.ndarray) -> jnp.ndarray:
                      gathered).astype(I32)
 
 
-def monomial_rotate_onehot(poly: jnp.ndarray, amount: jnp.ndarray,
-                           lane: int = 128) -> jnp.ndarray:
-    """X^amount · poly as batched one-hot matmuls — the MXU-native rotation.
-
-    Per-row gathers scalarize on TPU and barrel shifters don't fuse; instead
-    the rotation by ``a = a_hi·lane + a_lo`` is applied as
-
-    * a lane-level selection matrix ``S[b] ∈ {0,1}^{lane×2lane}`` contracted
-      against each coefficient block and its (negacyclically shifted)
-      predecessor — a batched matmul the MXU executes directly, and
-    * a block-level signed permutation (negacyclic rotation in Y = X^lane),
-      also a tiny batched matmul.
-
-    Exactness: values are split into four 8-bit limbs held in bf16 (TPU
-    matmuls truncate f32 operands through bf16 passes, so limbs must fit
-    the 8-bit bf16 mantissa); each output coefficient receives exactly one
-    ±input term and accumulates in f32, so the arithmetic is exact; limbs
-    recombine in int32 with wraparound.
-
-    ``poly``: [B, C, N] int32, ``amount``: [B] ints in [0, 2N).
-    """
-    batch, chans, n = poly.shape
-    lane = min(lane, n)
-    m = n // lane
-    assert n % lane == 0
-    amount = jnp.asarray(amount).astype(I32)
-    a_lo = amount % lane                                  # [B]
-    a_hi = amount // lane                                 # [B] in [0, 2M)
-
-    # --- lane-level selection matrix  [B, lane, 2*lane] -------------------
-    t = jnp.arange(lane)[:, None]                         # [lane, 1]
-    u = jnp.arange(2 * lane)[None, :]                     # [1, 2lane]
-    # out_lane[t] = in_block[t - a_lo]  if t >= a_lo  (u < lane: same block)
-    #             = prev_block[lane + t - a_lo] otherwise (u >= lane)
-    al = a_lo[:, None, None]
-    sel = ((u < lane) & (u == t - al)) | \
-        ((u >= lane) & (u - lane == lane + t - al))
-    sel = sel.astype(jnp.bfloat16)                        # [B, lane, 2lane]
-
-    # blocks + negacyclic predecessor blocks
-    blk = poly.reshape(batch, chans, m, lane)
-    prev = jnp.concatenate([-blk[:, :, m - 1:, :], blk[:, :, : m - 1, :]],
-                           axis=2)
-    cat = jnp.concatenate([blk, prev], axis=-1)           # [B, C, M, 2lane]
-
-    def limbs4(x):
-        u32 = x.astype(U32)
-        return [((u32 >> (8 * i)) & 0xFF).astype(jnp.bfloat16)
-                for i in range(4)]
-
-    def recombine(parts):
-        out = parts[0].astype(I32)
-        for i in (1, 2, 3):
-            out = out + (parts[i].astype(I32) << (8 * i))
-        return out
-
-    def apply(sel_mat, x):
-        return jnp.einsum("btu,bcmu->bcmt", sel_mat, x,
-                          preferred_element_type=jnp.float32)
-
-    rot_lane = recombine([apply(sel, lm) for lm in limbs4(cat)])
-
-    # --- block-level negacyclic rotation by a_hi --------------------------
-    mm = jnp.arange(m)[:, None]                           # [M, 1] out index
-    mp = jnp.arange(m)[None, :]                           # [1, M] in index
-    d = (mm - a_hi[:, None, None]) % (2 * m)              # [B, M, 1]
-    s_hi = jnp.where(d < m, (mp == d).astype(jnp.bfloat16),
-                     -(mp == d - m).astype(jnp.bfloat16))  # [B, M, M]
-
-    def apply_hi(x):
-        return jnp.einsum("bmp,bcpt->bcmt", s_hi, x,
-                          preferred_element_type=jnp.float32)
-
-    out = recombine([apply_hi(lm) for lm in limbs4(rot_lane)])
-    return out.reshape(batch, chans, n)
-
-
 def negacyclic_rotation_stack(polys: jnp.ndarray) -> jnp.ndarray:
     """[..., N] -> [..., N, N]: row j = X^j·poly — equal to
-    :func:`negacyclic_matrix` but gather-free (log2 N doubling steps of
-    static negacyclic rolls; TPU gathers scalarize, ~250 s at N=2048)."""
+    :func:`negacyclic_matrix`, built by log2 N doubling steps of static
+    negacyclic rolls."""
     n = polys.shape[-1]
     r = polys[..., None, :]
     step = 1
@@ -174,24 +93,6 @@ def negacyclic_roll_static(poly: jnp.ndarray, s: int) -> jnp.ndarray:
         out = jnp.concatenate([-poly[..., n - s:], poly[..., : n - s]],
                               axis=-1)
     return -out if neg else out
-
-
-def monomial_rotate_barrel(poly: jnp.ndarray,
-                           amount: jnp.ndarray) -> jnp.ndarray:
-    """X^amount · poly via a barrel shifter: log2(2N) conditional static
-    rolls instead of a per-row gather — the gather-free form TPU VPUs like.
-
-    ``poly``: [..., N]; ``amount``: [batch-broadcastable] ints in [0, 2N).
-    """
-    n = poly.shape[-1]
-    amount = jnp.asarray(amount)
-    while amount.ndim < poly.ndim:
-        amount = amount[..., None]
-    out = poly
-    for j in range((2 * n).bit_length() - 1):   # log2(2N) stages
-        bit = (amount >> j) & 1
-        out = jnp.where(bit == 1, negacyclic_roll_static(out, 1 << j), out)
-    return out.astype(I32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """ctypes binding of the native (C++) optimizer core.
 
-Builds ``native/optimizer.cpp`` with g++ on first use (cached as
-``native/liboptimizer.so``) and exposes :func:`optimize_native` with the
+Builds ``native/optimizer.cpp`` with g++ on first use (cached as the
+untracked ``native/liboptimizer.so``, rebuilt when the source is newer)
+and exposes :func:`optimize_native` with the
 same signature/result as :func:`tfhe_fbs_map_tpu.optimizer.optimize`.
 Falls back to ``None`` availability when no toolchain is present; callers
 use the pure-Python search then.
@@ -10,6 +11,7 @@ use the pure-Python search then.
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 
@@ -58,9 +60,13 @@ def _load():
     if _lib is not None:
         return _lib
     if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
+        # build beside the target, then rename: concurrent processes never
+        # load a half-written library
+        tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}")
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", str(_LIB), str(_SRC)],
+            ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(_SRC)],
             check=True, capture_output=True)
+        os.replace(tmp, _LIB)
     _lib = ctypes.CDLL(str(_LIB))
     _lib.optimize_params.restype = ctypes.c_int32
     _lib.optimize_params.argtypes = [

@@ -5,15 +5,13 @@ pipeline (``experiments/add_exec_estimates.py:9-16`` invokes
 ``optimizer --precision=<p> --sq-norm2=<norm2>`` and parses the
 second-to-last comma field as the bootstrap cost).  Differences by design:
 
-* the cost model is a **TPU roofline** (MXU int8 MACs + HBM streaming at
-  large ciphertext batch), not a CPU FFT model — costs are microseconds per
-  bootstrap at batch saturation;
+* the cost model is an **H100 roofline** (int8 tensor-core MACs + HBM
+  traffic at large ciphertext batch, :mod:`.device`), not a CPU FFT
+  model — costs are microseconds per bootstrap at batch saturation;
 * security is enforced via the 128-bit curve ``min_noise_std_rel``
   (tfhe/params.py) for both the LWE and GLWE keys;
-* candidates are restricted to the MXU s8-matmul fast path by default:
-  gadget base_log ≤ 8 (digits must fit int8) and the precomputed negacyclic
-  key-matrix limbs must fit the HBM budget
-  (``n · 4 · (k+1)·l·N · (k+1)·N`` bytes ≤ 12 GB).
+* candidates are restricted to the int8 fast path by default: gadget
+  base_log ≤ 8 (digits must fit int8).
 
 A C++ implementation of the same grid search lives in
 ``native/optimizer.cpp`` (built via ctypes) for harness-scale sweeps; this
@@ -27,22 +25,21 @@ from dataclasses import dataclass
 from ..tfhe.params import TFHEParams, min_noise_std_rel, Q
 from .noise import P_ERROR_4_SIGMA, p_error_atomic
 
-__all__ = ["Solution", "optimize", "bootstrap_cost_us", "StagedSolution",
-           "optimize_staged"]
+__all__ = ["Solution", "optimize", "bootstrap_cost_us", "bootstrap_int8_ops",
+           "StagedSolution", "optimize_staged"]
 
 from ..tfhe.staged import SELECT_P
 
-# TPU v5e-class roofline constants (per chip)
-MXU_INT8_OPS = 394e12          # ops/s (2 ops per MAC)
-HBM_BYTES = 820e9              # bytes/s
-# measured MXU utilizations of the fused Pallas blind-rotate kernel (r2,
-# v5e): streamed precomputed key matrices (0.70 measured at the anchor) vs
-# the on-the-fly rotation-strip rebuild (0.45-0.72 across the p8/p16/p32
-# presets; 0.55 is the flat mid-point) — ops/fused_blind_rotate.py, PERF.md
-MXU_EFF_FUSED = 0.65
-MXU_EFF_OTF = 0.55
-MATMUL_HBM_BUDGET = 12e9       # precomputed key-matrix budget (bytes)
-GENERIC_PATH_SLOWDOWN = 140.0  # measured generic-vs-fused ratio (r1)
+from .device import H100_SXM
+
+# roofline constants of one NVIDIA H100 SXM (optimizer/device.py for the
+# source; mirrored in native/optimizer.cpp)
+INT8_OPS = H100_SXM["int8_ops"]
+HBM_BYTES = H100_SXM["hbm_bytes_per_s"]
+# generic tfhe/pbs.py path over the int8 fast path, measured in one run at
+# the anchor (n=546, k=2, N=512, l=2), batch 512, on an H100 80GB HBM3 at
+# 400 W: 1,231.593 vs 67.820 µs per bootstrap (compact keys; PERF.md)
+GENERIC_PATH_SLOWDOWN = 1231.593 / 67.820
 
 
 @dataclass(frozen=True)
@@ -53,22 +50,26 @@ class Solution:
     bsk_limbs: int = 4         # < 4: limb-dropped (quantized) BSK matrices
 
 
+def bootstrap_int8_ops(n: int, k: int, N: int, br_l: int, ks_l: int,
+                       bsk_limbs: int = 4) -> float:
+    """int8 tensor-core operations (2 per MAC) of one bootstrap."""
+    # blind rotate: n steps of rows·N × (k+1)·N MACs per kept key limb
+    br_macs = n * (k + 1) ** 2 * br_l * N * N * bsk_limbs
+    # keyswitch: kN·l × (n+1) matmul × 4 limbs
+    ks_macs = k * N * ks_l * (n + 1) * 4
+    return 2.0 * (br_macs + ks_macs)
+
+
 def bootstrap_cost_us(n: int, k: int, N: int, br_l: int, ks_l: int,
                       bsk_limbs: int = 4) -> float:
     """Roofline model: µs per bootstrap at large batch.
 
-    Key matrices that fit the HBM budget stream from HBM (orientation
-    "fused"); larger sets rebuild negacyclic tiles in VMEM (orientation
-    "fused_otf") at a lower measured MXU utilization.  ``bsk_limbs`` < 4
-    (quantized BSK) removes the dropped limbs' MACs and bytes.
+    The larger of the int8 tensor-core time of the blind rotation and key
+    switch and the HBM time of the accumulator traffic.  ``bsk_limbs`` < 4
+    (quantized BSK) removes the dropped limbs' MACs.
     """
-    mat_bytes = n * float(bsk_limbs) * (k + 1) * br_l * N * (k + 1) * N
-    eff = MXU_EFF_FUSED if mat_bytes <= MATMUL_HBM_BUDGET else MXU_EFF_OTF
-    # blind rotate: n conv steps of rows x N x (k+1) x N MACs per kept limb
-    br_macs = n * (k + 1) ** 2 * br_l * N * N * bsk_limbs
-    # keyswitch: kN*l x (n+1) matmul x 4 limbs
-    ks_macs = k * N * ks_l * (n + 1) * 4
-    compute_s = 2.0 * (br_macs + ks_macs) / (MXU_INT8_OPS * eff)
+    compute_s = bootstrap_int8_ops(n, k, N, br_l, ks_l,
+                                   bsk_limbs) / INT8_OPS
     # per-ct HBM traffic: ACC read+write+rotate per step (batch >> 1 keeps
     # key streaming amortized)
     acc_bytes = n * 3 * (k + 1) * N * 4
@@ -82,10 +83,10 @@ def optimize(p: int, sq_norm2: float,
              security_bits: int = 128) -> Solution | None:
     """Grid-search the cheapest parameter set meeting the error target.
 
-    ``fast_path_only=True`` restricts to the fused Pallas fast path
-    (gadget base ≤ 2^8 so digits fit int8); the on-the-fly key form
-    removes the old HBM-budget constraint, so the generic fallback only
-    triggers for parameter regimes outside the int8-digit envelope.
+    ``fast_path_only=True`` restricts to the int8 fast path (gadget base
+    ≤ 2^8 so digits fit int8); the generic fallback only triggers for
+    parameter regimes outside the int8-digit envelope, priced at
+    ``GENERIC_PATH_SLOWDOWN`` × the int8 roofline.
     """
     best = _optimize_inner(p, sq_norm2, max_p_error, True)
     if best is None:
@@ -103,11 +104,11 @@ def _optimize_inner(p: int, sq_norm2: float, max_p_error: float,
 
     glwe_shapes = [(1, 1024), (2, 512), (1, 2048), (2, 1024), (3, 512),
                    (4, 512), (2, 2048), (1, 4096)]
-    # int8 digits (the MXU fast path) need base ≤ 2^8; the generic
+    # int8 digits (the tensor-core fast path) need base ≤ 2^8; the generic
     # gather-based fallback can use wider digits
     max_base = 8 if fast_path_only else 12
 
-    # BSK limb-drop quantization is a fast-path (matmul/fused) key layout
+    # BSK limb-drop quantization is a fast-path key layout
     # knob: the generic gather path always uses exact keys
     drops = (0, 1) if fast_path_only else (0,)
 
@@ -190,8 +191,8 @@ def optimize_staged(p: int, sq_norm1: float = 4.0, sq_norm2: float = 2.0,
     # select-family grid: SELECT_P when commensurable with the wire grid,
     # else p/2 (runtime/executor.py routing; splits need SELECT_P exactly)
     select_p = SELECT_P if p % SELECT_P == 0 else p // 2
-    # k restricted to the fused-kernel-validated GLWE shapes (k in {1,2};
-    # PERF.md measurements cover (1,1024)/(2,512)/(1,2048)/(2,1024))
+    # k restricted to {1, 2}: the GLWE shapes (1,1024)/(2,512)/(1,2048)/
+    # (2,1024) the staged executor is tested at
     shapes = [(k, big_dim // k) for k in (1, 2)
               if big_dim % k == 0 and big_dim // k >= 2 * select_p]
 

@@ -1,15 +1,15 @@
-"""Multi-host (multi-process) entry for the mesh executor.
+"""Multi-process entry for the mesh executor.
 
 The reference has no distributed story at all (SURVEY.md §2 "Parallelism
-strategies: none"); the TPU-native design scales the ciphertext batch over
-hosts via DCN data-parallelism: every process initializes
-``jax.distributed``, the global (dp, tp) mesh spans all processes'
-devices, the dp axis carries the batch (DCN only sees independent
-ciphertext slices — no cross-host collectives on the hot path), and tp
-stays within each host's ICI domain where the key-contraction psum rides.
+strategies: none").  Here every process initializes ``jax.distributed``,
+the global (dp, tp) mesh spans all processes' devices, the dp axis
+carries the batch (independent ciphertext slices — no collectives on the
+hot path), and each tp group stays inside one process, whose cards share
+the key-contraction psum over their direct links.
 
-Single-process runs (tests, one-chip benches) skip initialization and get
-the local mesh — the executor code is identical either way.
+Single-process runs (tests, one process driving all cards of a host) skip
+initialization and get the local mesh — the executor code is identical
+either way.
 """
 
 from __future__ import annotations
@@ -33,11 +33,12 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> bool:
     """Initialize ``jax.distributed`` when running multi-process.
 
-    Arguments default to the standard environment variables
-    (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-    ``JAX_PROCESS_ID``; on Cloud TPU pods ``jax.distributed.initialize()``
-    auto-detects everything).  Returns True when a multi-process runtime
-    was initialized, False for the single-process fallback.
+    Arguments default to the environment variables
+    ``JAX_COORDINATOR_ADDRESS`` (e.g. ``localhost:12345``) /
+    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``; nothing is auto-detected,
+    so a multi-process run names all three.  Returns True when a
+    multi-process runtime was initialized, False for the single-process
+    fallback.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     num_processes = num_processes if num_processes is not None else \
@@ -66,13 +67,13 @@ def global_mesh(tp: int = 1) -> Mesh:
     """(dp, tp) mesh over ALL processes' devices, tp innermost.
 
     ``jax.devices()`` orders devices process-major, so reshaping to
-    (dp, tp) keeps each tp group inside one process's ICI domain as long
-    as tp divides the local device count — asserted here, because a tp
-    group spanning DCN would put the key-contraction psum on the slow
-    network.
+    (dp, tp) keeps each tp group inside one process as long as tp divides
+    the local device count — asserted here, because a tp group spanning
+    processes would put the per-step key-contraction psum on the
+    inter-host network.
     """
     local = jax.local_device_count()
     assert tp >= 1 and local % tp == 0, \
         f"tp={tp} must divide the {local} local devices (a tp group may " \
-        f"not span processes: the key-contraction psum must stay on ICI)"
+        f"not span processes: the key-contraction psum must stay in-host)"
     return make_mesh(np.asarray(jax.devices()), tp=tp)

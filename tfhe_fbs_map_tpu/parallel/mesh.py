@@ -1,13 +1,16 @@
 """Device-mesh sharding for batched homomorphic execution.
 
 Parallelism axes of the framework (the reference has none — SURVEY.md §2
-"Parallelism strategies: none"; these are the TPU-native equivalents):
+"Parallelism strategies: none"):
 
 * ``dp`` — data parallel over the ciphertext batch (independent bootstraps
-  of one circuit level × user batch).  Embarrassingly parallel; scales over
-  ICI and DCN.
+  of one circuit level × user batch).  Embarrassingly parallel.
 * ``tp`` — tensor parallel over key material: the key-switch key rows and
-  the GGSW conv channels are sharded, with XLA inserting the psum over ICI.
+  the key-matrix contraction are sharded, with XLA inserting the int32
+  psum (NCCL between GPUs).
+
+The cards of one host are joined all to all, so the mesh is
+``jax.devices()`` reshaped to (dp, tp) and follows the algorithm alone.
 
 Keys are sharded once at setup; batches are sharded per call.  Everything
 goes through ``jax.jit`` with ``NamedSharding`` annotations so GSPMD
@@ -47,20 +50,18 @@ def replicate(mesh: Mesh, x: jnp.ndarray) -> jnp.ndarray:
 def shard_fast_keys(mesh: Mesh, fast):
     """Lay out FastKeys for the mesh.
 
-    * key-switch limbs: sharded over tp rows (contraction -> psum over ICI);
-    * matmul-orientation bootstrap kernels ([n, L, rows·N, (k+1)N]): the
-      contraction dimension rows·N is sharded over tp — each chip holds a
-      slice of every negacyclic key matrix and the external product's
-      partial sums meet in an ICI psum.
-    * fused orientations: the Pallas kernel is dp-only (the blind-rotate
-      loop is sequential per shard, batch is the parallel axis), so key
-      material replicates; the key-switch limbs stay tp-sharded (the
-      keyswitch matmul runs in XLA outside the kernel).
+    * key-switch limbs: sharded over tp rows (contraction -> psum);
+    * matmul-orientation key matrices ([n, L·(k+1)·N, rows·N]): the
+      contraction dimension rows·N is sharded over tp — each device holds
+      a slice of every negacyclic key matrix and the external product's
+      partial sums meet in a psum;
+    * compact keys replicate (dp only: they are small, and each step's
+      matrix is rebuilt from them on every device).
     """
     from ..ops.blind_rotate import FastKeys
     if fast.orientation == "matmul":
         bsk = jax.device_put(fast.bsk_kernels,
-                             NamedSharding(mesh, P(None, "tp", None)))
+                             NamedSharding(mesh, P(None, None, "tp")))
     else:
         bsk = jax.device_put(fast.bsk_kernels, NamedSharding(mesh, P()))
     ksk = jax.device_put(fast.ksk_limbs, NamedSharding(mesh, P(None, "tp")))
@@ -68,41 +69,18 @@ def shard_fast_keys(mesh: Mesh, fast):
 
 
 def sharded_bootstrap(mesh: Mesh, fast):
-    """jitted batched FBS with dp-sharded inputs/outputs on ``mesh``.
-
-    The XLA orientations partition through GSPMD; the fused Pallas
-    orientations go through ``shard_map`` (a pallas_call is opaque to the
-    partitioner), each dp shard running the kernel on its batch slice with
-    replicated keys.
-    """
+    """Batched FBS with dp-sharded inputs/outputs on ``mesh``, partitioned
+    by GSPMD from the key layout of :func:`shard_fast_keys` (the keys are
+    traced arguments, not constants baked into the executable)."""
     from ..ops.blind_rotate import _fbs_fast_impl
-    params = fast.params
+    batch = NamedSharding(mesh, P("dp"))
+    jitted = jax.jit(
+        lambda bsk, ksk, big_cts, tvs, posts: _fbs_fast_impl(
+            fast.params, fast.orientation, bsk, ksk, big_cts, tvs, posts),
+        in_shardings=(fast.bsk_kernels.sharding, fast.ksk_limbs.sharding,
+                      batch, batch, batch),
+        out_shardings=batch)
 
     def fn(big_cts, tvs, posts):
-        return _fbs_fast_impl(params, fast.orientation, fast.bsk_kernels,
-                              fast.ksk_limbs, big_cts, tvs, posts)
-
-    if fast.orientation in ("fused", "fused_otf"):
-        from jax import shard_map
-
-        def fn_keys(bsk, ksk, big_cts, tvs, posts):
-            return _fbs_fast_impl(params, fast.orientation, bsk, ksk,
-                                  big_cts, tvs, posts)
-
-        # keys fully replicated per shard: the keyswitch is per-ciphertext
-        # work on the local batch slice (shard_map is manual — a tp-sharded
-        # ksk would need explicit digit slicing + psum, which only pays off
-        # under GSPMD on the XLA orientations)
-        mapped = shard_map(
-            fn_keys, mesh=mesh,
-            in_specs=(P(), P(), P("dp"), P("dp"), P("dp")),
-            out_specs=P("dp"), check_vma=False)
-
-        def fn(big_cts, tvs, posts):
-            return mapped(fast.bsk_kernels, fast.ksk_limbs,
-                          big_cts, tvs, posts)
-
-    in_shard = NamedSharding(mesh, P("dp"))
-    out_shard = NamedSharding(mesh, P("dp"))
-    return jax.jit(fn, in_shardings=(in_shard, in_shard, in_shard),
-                   out_shardings=out_shard)
+        return jitted(fast.bsk_kernels, fast.ksk_limbs, big_cts, tvs, posts)
+    return fn

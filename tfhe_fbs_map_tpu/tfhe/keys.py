@@ -3,7 +3,7 @@
 Randomness (uniform masks, gaussian noise) is sampled host-side with a seeded
 numpy Generator; the ring products assembling the keys run on device as exact
 int32 (mod 2^32) matmuls against the GLWE key's negacyclic matrix.  Layouts
-are chosen for the TPU executor:
+are chosen for the device executor:
 
 * bootstrapping key: ``[n, (k+1)*l, k+1, N]`` int32 — one GGSW per small-key
   bit, rows indexed ``(component c, level)`` with level minor,

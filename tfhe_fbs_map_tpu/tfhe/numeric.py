@@ -1,7 +1,7 @@
 """Exact mod-2^32 torus arithmetic helpers (JAX int32/uint32).
 
-TPU integer units are 32-bit two's-complement with wraparound — exactly
-arithmetic mod 2^32, so the torus needs no emulation.  This module fixes the
+Accelerator int32 arithmetic is 32-bit two's-complement with wraparound —
+exactly arithmetic mod 2^32, so the torus needs no emulation.  This module fixes the
 conventions:
 
 * canonical ciphertext dtype is ``int32`` (signed view of the torus),

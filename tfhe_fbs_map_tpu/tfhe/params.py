@@ -1,8 +1,8 @@
-"""TFHE parameter sets for the TPU executor.
+"""TFHE parameter sets for the device executor.
 
 The ciphertext modulus is fixed to ``q = 2**32``: torus elements are native
-int32 values and every add/mul wraps exactly — the representation TPUs
-execute at full rate (no int64 multiplier exists on TPU; the reference's
+int32 values and every add/mul wraps exactly — the representation int8
+tensor cores and int32 vector units execute at full rate (the reference's
 Concrete backend uses q=2**64 f64-FFT arithmetic, a CPU design point).
 
 Security: ``min_noise_std_rel`` encodes the standard 128-bit lattice hardness

@@ -1,6 +1,6 @@
 """Programmable (functional) bootstrap: key switch → blind rotate → extract.
 
-The TPU-native realization of the primitive the reference delegates to
+The device realization of the primitive the reference delegates to
 Concrete: it evaluates exactly the semantics of a ``LutProgram`` bootstrap
 node (reference ``fbs_exec_env.py:218-220``), including the three negacyclic
 half-table acceptance modes of the mapper (``map_to_fbs.py:81-98``):
@@ -91,7 +91,7 @@ def external_product(glwe: jnp.ndarray, ggsw: jnp.ndarray,
 
     Gadget-decomposes the GLWE components and contracts against the GGSW
     rows; ring products go through the on-the-fly negacyclic matrix (the
-    generic exact path — the MXU fast path lives in ops/ and the runtime).
+    generic exact path — the int8 fast path lives in ops/blind_rotate.py).
     """
     l, b = params.bsk_level, params.bsk_base_log
     k1 = params.glwe_dim + 1

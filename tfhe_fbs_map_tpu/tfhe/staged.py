@@ -23,8 +23,8 @@ adaptation of tree-based PBS, Guimarães-Borin-Aranha 2021):
   p = 8.
 
 Both stages run at N <= 1024 where the single big bootstrap needs
-N = 2048: measured ~2.3x fewer bootstrap-microseconds per size-32 lookup
-(PERF.md round 4).  The two parameter families share one master GLWE
+N = 2048, so a size-32 lookup costs fewer int8 MACs than the native one
+(``optimizer.bootstrap_cost_us`` of the two families vs the N = 2048 one).  The two parameter families share one master GLWE
 secret (viewed as (k1, N1) and (k2, N2) polynomials with k1*N1 == k2*N2)
 and one small LWE key: ``TFHEKeys.extracted_key`` is the flattened master
 in natural order under BOTH views, so wires produced by either family

@@ -1,3 +1,4 @@
-from .profiling import device_timer, force_completion, jax_trace
+from .cache import enable_compile_cache
+from .profiling import jax_trace
 
-__all__ = ["device_timer", "force_completion", "jax_trace"]
+__all__ = ["enable_compile_cache", "jax_trace"]
